@@ -4,12 +4,12 @@
 // The reference's native surface is its Rust crate plus two native dependency
 // crates: num-modular (Montgomery F_p arithmetic, field.rs:2) and sha2
 // (merkle.rs:1, channel.rs:4), with bincode framing (channel.rs:20). This
-// library is the TPU framework's host-runtime equivalent: the serial channel
+// library is the framework's host-runtime equivalent: the serial channel
 // spine and the verifier's point checks are scalar host work (the wrong shape
-// for the TPU), so they live here in C++, exposed to Python over a C ABI via
-// ctypes. The verifier is a from-scratch twin of proof.rs:15-149 semantics
-// (with challenge replay, which the reference omits) and serves as the
-// independent cross-check of the Python verifier and the TPU prover's bytes.
+// for a vector device), so they live here in C++, exposed to Python over a C
+// ABI via ctypes. The verifier is a from-scratch twin of proof.rs:15-149
+// semantics (with challenge replay, which the reference omits) and serves as
+// the independent cross-check of the Python verifier and the prover's bytes.
 //
 // Build: make -C native   (produces libzkstark_native.so)
 

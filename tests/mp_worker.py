@@ -46,7 +46,7 @@ def main():
 
     assert jax.process_index() == pid
     assert len(jax.devices()) == 2 * nprocs, jax.devices()
-    # rows = processes (DCN axis), columns = local devices (ICI axis)
+    # rows = processes, columns = local devices
     mesh = make_host_chip_mesh()
     assert mesh.shape == {"host": nprocs, "chip": 2}, mesh.shape
 

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from zkstark_tpu.hash import (
     MerkleTree,
+    build_levels,
     compute_root_from_path,
     digest_to_bytes,
     leaf_hash,
@@ -79,3 +80,15 @@ def test_large_tree_roundtrip():
         assert compute_root_from_path(int(vals[i]), i, tree.auth_path(i)) == root
     # tampered element must not verify
     assert compute_root_from_path(int(vals[0]) ^ 1, 0, tree.auth_path(0)) != root
+
+
+def test_batched_levels_equal_solo_trees():
+    """build_levels over a leading batch axis == one tree per row."""
+    vals = jnp.asarray(
+        np.random.default_rng(3).integers(0, 1 << 32, (3, 16), dtype=np.uint64).astype(np.uint32)
+    )
+    batched = build_levels(vals)
+    for b in range(3):
+        solo = build_levels(vals[b])
+        for lb, ls in zip(batched, solo):
+            np.testing.assert_array_equal(np.asarray(lb[b]), np.asarray(ls))

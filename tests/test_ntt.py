@@ -73,3 +73,54 @@ def test_ntt_jit_and_grad_free():
     a = np.asarray(fn(jnp.asarray(fp.host_to_mont(vals))))
     b = np.asarray(ntt.ntt(jnp.asarray(fp.host_to_mont(vals)), plan_f))
     np.testing.assert_array_equal(a, b)
+
+
+def _rand_mont(field, n, seed):
+    vals = np.random.default_rng(seed).integers(0, field.p, n, dtype=np.uint64)
+    return jnp.asarray(field.host_to_mont(vals.astype(np.uint32)))
+
+
+@pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "p_alt"])
+@pytest.mark.parametrize("log_n", [14, 15, 16])
+def test_fourstep_matches_radix2(field, log_n):
+    """The plain-jnp four-step route (n ≥ FOURSTEP_MIN) is bit-identical to
+    the flat radix-2 chain it replaces at these sizes."""
+    n = 1 << log_n
+    assert n >= ntt.core.FOURSTEP_MIN
+    x = _rand_mont(field, n, log_n)
+    plan = ntt.forward_plan(n, field)
+    br, tw = ntt.bit_reverse_indices(n), ntt.core.radix2_twiddles(n, plan.w, field)
+    # jitted: eager dispatch would compile every primitive shape separately
+    flat = jax.jit(lambda v: ntt.core.radix2(v, br, tw, field))(x)
+    four = jax.jit(lambda v: ntt.ntt(v, plan))(x)
+    np.testing.assert_array_equal(np.asarray(four), np.asarray(flat))
+
+
+@pytest.mark.parametrize("field", [fp.FIELD101, fp.FIELD_ALT], ids=["p101", "p_alt"])
+def test_fourstep_inverse_roundtrip(field):
+    """intt folds n^{-1} into the four-step twiddles: a batched round trip
+    (leading axis) returns the input exactly."""
+    n = 1 << 15
+    x = jnp.stack([_rand_mont(field, n, 1), _rand_mont(field, n, 2)])
+    fwd, inv = ntt.forward_plan(n, field), ntt.inverse_plan(n, field)
+    back = jax.jit(lambda v: ntt.intt(ntt.ntt(v, fwd), inv))(x)
+    np.testing.assert_array_equal(np.asarray(back), np.asarray(x))
+
+
+@pytest.mark.parametrize("log_n", [26, 27])
+def test_big_plans_hold_no_size_n_tables(log_n):
+    """Plans past the old 2^25 cliff build, carry no radix-2 tables, and their
+    four-step constants are O(√n) words; the transform traces without
+    raising."""
+    n = 1 << log_n
+    plan = ntt.forward_plan(n)
+    assert plan.bitrev is None and plan.twiddles == ()
+    c = ntt.core.fourstep_constants(n, plan.w)
+    words = c.rows.size + c.rows_blk.size
+    for sub in (c.inner, c.outer):
+        words += sum(t.size for t in sub.twiddles) + (
+            0 if sub.bitrev is None else sub.bitrev.size
+        )
+    assert words <= 8 * (1 << ((log_n + 1) // 2)), words
+    out = jax.eval_shape(lambda v: ntt.ntt(v, plan), jax.ShapeDtypeStruct((n,), jnp.uint32))
+    assert out.shape == (n,)

@@ -1,104 +1,52 @@
-"""Pallas grid/BlockSpec plumbing with ≥2 grid steps.
+"""SHA-256 kernel grid plumbing: programs striding over ≥2 blocks each.
 
-The kernel *bodies* are covered by ops.testing.emulate_kernel, which runs
-them on whole arrays and skips the grid plumbing entirely — an index-map bug
-(e.g. `lambda i: (i, 0)` vs `(0, i)`) would pass that suite and only surface
-on real TPU. Here:
-
-  * the NTT column kernel runs the REAL pallas_call in interpreter mode
-    (small body — tractable on CPU);
-  * the SHA-256 kernels (whose fully-unrolled bodies take minutes to
-    interpret/compile on CPU) run their PRODUCTION grid specs
-    (sha256_kernel._leaf_grid_spec / _node_grid_spec — the same dicts the
-    real pallas_call uses) through ops.testing.emulate_pallas_grid, which
-    reproduces the block slicing/scatter of the grid loop.
-
-Either way, per-block-distinct data means a wrong block index map produces
-wrong bytes on CPU CI.
+The kernel *bodies* are covered by ops.testing.emulate_kernel, which runs a
+one-program grid. Here the PRODUCTION grid spec (sha256_kernel._grid_spec —
+the same dict the real pallas_call uses, with fewer programs) runs through
+ops.testing.emulate_pallas_grid: every program walks its strided blocks and
+the last block is masked, so a striding or tail bug — a block hashed twice,
+skipped, or written past the end — produces wrong bytes on CPU CI.
 """
 
 import hashlib
 
 import numpy as np
-import pytest
 
-import jax.numpy as jnp
-
-from zkstark_tpu.field import fp
-from zkstark_tpu.ops import ntt_kernel, sha256_kernel
+from zkstark_tpu.hash import sha256
+from zkstark_tpu.ops import sha256_kernel
 from zkstark_tpu.ops.testing import emulate_pallas_grid
 
+N = 3 * sha256_kernel.BLOCK + 5  # 4 blocks over 2 programs, ragged tail
+PROGRAMS = 2
 
-def test_leaf_grid_two_steps():
-    # 2 grid steps of _ROWS=8 rows × 128 lanes = 2048 leaf hashes
-    m = 2 * sha256_kernel._ROWS
+
+def test_leaf_grid_strided_blocks():
     rng = np.random.default_rng(1)
-    vals = rng.integers(0, 1 << 32, m * 128, dtype=np.uint64).astype(np.uint32)
-    planes = emulate_pallas_grid(
+    vals = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.uint32)
+    got = emulate_pallas_grid(
         sha256_kernel._leaf_kernel,
-        sha256_kernel._leaf_grid_spec(m),
-        vals.reshape(m, 128),
+        sha256_kernel._grid_spec(N, PROGRAMS),
+        np.array([N], np.int32),
+        sha256._K,
+        vals,
     )
-    got = planes.reshape(8, m * 128).T  # (N, 8) digests
-    # spot-check entries from BOTH grid blocks against hashlib
-    for idx in (0, 1, 127, 1024, 1500, 2047):
+    # spot-check rows from every block, both programs, against hashlib
+    for idx in (0, 1, 255, 256, 600, 2 * 256 + 7, N - 1):
         want = hashlib.sha256(int(vals[idx]).to_bytes(4, "big")).digest()
         assert got[idx].astype(">u4").tobytes() == want, idx
 
 
-def test_node_grid_two_steps():
-    m = 2 * sha256_kernel._ROWS
-    k = m * 128
+def test_node_grid_strided_blocks():
     rng = np.random.default_rng(2)
-    pairs = rng.integers(0, 1 << 32, (k, 16), dtype=np.uint64).astype(np.uint32)
-    planes = emulate_pallas_grid(
+    pairs = rng.integers(0, 1 << 32, (N, 16), dtype=np.uint64).astype(np.uint32)
+    got = emulate_pallas_grid(
         sha256_kernel._node_kernel,
-        sha256_kernel._node_grid_spec(m),
-        pairs.T.reshape(16, m, 128),
+        sha256_kernel._grid_spec(N, PROGRAMS),
+        np.array([N], np.int32),
+        sha256._K,
+        sha256._PAD_WK,
+        pairs,
     )
-    got = planes.reshape(8, k).T
-    for idx in (0, 3, 1024, 2047):
+    for idx in (0, 3, 300, 2 * 256 + 1, N - 1):
         want = hashlib.sha256(pairs[idx].astype(">u4").tobytes()).digest()
         assert got[idx].astype(">u4").tobytes() == want, idx
-
-
-@pytest.mark.parametrize("lanes", [256])
-def test_ntt_cols_call_two_grid_steps(lanes):
-    """(m, lanes) column NTTs with lanes//128 = 2 grid steps: every column
-    must equal the jnp radix-2 NTT of that column."""
-    from zkstark_tpu import ntt
-
-    m = 16
-    w = fp.subgroup_generator(m)
-    rng = np.random.default_rng(3)
-    x = rng.integers(0, fp.P, (m, lanes), dtype=np.uint64).astype(np.uint32)
-    x_mont = jnp.asarray(fp.host_to_mont(x))
-
-    tw = jnp.asarray(ntt_kernel._stage_twiddle_table(m, w))
-    br = ntt.bit_reverse_indices(m)
-    got = ntt_kernel._ntt_cols_call(jnp.take(x_mont, jnp.asarray(br), axis=0), tw, True)
-
-    plan = ntt.make_plan(m, w)
-    want = ntt.ntt(x_mont.T, plan).T  # batch transform along columns
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.parametrize("lanes", [256])
-def test_pease_cols_call_two_grid_steps(lanes):
-    """Pease kernel through the REAL pallas_call (interpret) with 2 grid
-    steps: natural-order input columns → bit-reversed-row NTT of each."""
-    from zkstark_tpu import ntt
-
-    m = 16
-    w = fp.subgroup_generator(m)
-    rng = np.random.default_rng(4)
-    x = rng.integers(0, fp.P, (m, lanes), dtype=np.uint64).astype(np.uint32)
-    x_mont = jnp.asarray(fp.host_to_mont(x))
-
-    tw = jnp.asarray(ntt_kernel._pease_twiddle_table(m, w))
-    got = ntt_kernel._pease_cols_call(x_mont, tw, True)
-
-    plan = ntt.make_plan(m, w)
-    br = jnp.asarray(ntt.bit_reverse_indices(m))
-    want = jnp.take(ntt.ntt(x_mont.T, plan).T, br, axis=0)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

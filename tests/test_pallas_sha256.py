@@ -1,23 +1,25 @@
-"""Pallas SHA-256 kernel bodies vs the jnp implementation and hashlib.
+"""SHA-256 GPU kernel: bodies, the wrapper's ragged tails, and routing.
 
-Kernel bodies run via ops.testing.emulate_kernel (same traced computation the
-Mosaic compiler sees; interpret mode is too slow for these straight-line
-kernels on CPU). Equality with the jnp twin — itself pinned to the reference's
-hard-coded digests (merkle.rs:112-182) in tests/test_merkle.py — carries the
-golden contract over. The BlockSpec/grid plumbing is exercised on real TPU by
-bench.py and the prover path.
+Kernel bodies run via ops.testing.emulate_kernel / emulate_pallas_grid (the
+same arithmetic the GPU compiler sees, run eagerly). Equality with the
+`fori_loop` twin — itself pinned to the reference's hard-coded digests
+(merkle.rs:112-182) in tests/test_merkle.py — and with hashlib carries the
+golden contract over. The compiled kernel is checked on the card by
+tests/test_gpu.py and chip_smoke.py.
 """
 
 import hashlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zkstark_tpu.hash import sha256
+from zkstark_tpu import ops
+from zkstark_tpu.hash import merkle, sha256
 from zkstark_tpu.ops import sha256_kernel, testing
 
-N = 1024
+N = sha256_kernel.BLOCK
 
 
 @pytest.fixture(scope="module")
@@ -26,15 +28,17 @@ def values():
     return rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.uint32)
 
 
+def _count(n):
+    return np.array([n], np.int32)
+
+
 def test_leaf_kernel_matches_jnp_and_hashlib(values):
-    planes = testing.emulate_kernel(
-        sha256_kernel._leaf_kernel,
-        (8, N // 128, 128),
-        jnp.uint32,
-        jnp.asarray(values).reshape(N // 128, 128),
+    got = np.asarray(
+        testing.emulate_kernel(
+            sha256_kernel._leaf_kernel, (N, 8), jnp.uint32, _count(N), sha256._K, values
+        )
     )
-    got = np.asarray(planes.reshape(8, N).T)
-    want = np.asarray(sha256.leaf_hash(jnp.asarray(values)))
+    want = np.asarray(sha256.leaf_hash_loop(jnp.asarray(values)))
     np.testing.assert_array_equal(got, want)
     for i in (0, 17, N - 1):
         ref = hashlib.sha256(int(values[i]).to_bytes(4, "big")).digest()
@@ -42,159 +46,109 @@ def test_leaf_kernel_matches_jnp_and_hashlib(values):
 
 
 def test_node_kernel_matches_jnp_and_hashlib(values):
-    left = sha256.leaf_hash(jnp.asarray(values))
-    right = sha256.leaf_hash(jnp.asarray(values[::-1].copy()))
-    pairs = jnp.concatenate([left, right], axis=-1)  # (N, 16)
-    planes = testing.emulate_kernel(
-        sha256_kernel._node_kernel,
-        (8, N // 128, 128),
-        jnp.uint32,
-        pairs.T.reshape(16, N // 128, 128),
+    left = sha256.leaf_hash_loop(jnp.asarray(values))
+    right = sha256.leaf_hash_loop(jnp.asarray(values[::-1].copy()))
+    pairs = np.asarray(jnp.concatenate([left, right], axis=-1))  # (N, 16)
+    got = np.asarray(
+        testing.emulate_kernel(
+            sha256_kernel._node_kernel,
+            (N, 8),
+            jnp.uint32,
+            _count(N),
+            sha256._K,
+            sha256._PAD_WK,
+            pairs,
+        )
     )
-    got = np.asarray(planes.reshape(8, N).T)
-    want = np.asarray(sha256.node_hash(left, right))
+    want = np.asarray(sha256.node_hash_loop(jnp.asarray(pairs)))
     np.testing.assert_array_equal(got, want)
-    lb = sha256.digest_to_bytes(np.asarray(left[3]))
-    rb = sha256.digest_to_bytes(np.asarray(right[3]))
-    assert sha256.digest_to_bytes(got[3]) == hashlib.sha256(lb + rb).digest()
+    assert sha256.digest_to_bytes(got[3]) == hashlib.sha256(
+        pairs[3].astype(">u4").tobytes()
+    ).digest()
 
 
 def test_pad_schedule_constant():
     """The precomputed second-block schedule must equal a live expansion."""
-    w16 = [jnp.full((1, 1), int(v), jnp.uint32) for v in sha256_kernel._PAD]
-    live = sha256_kernel._schedule(w16)
+    w16 = [jnp.full((1, 1), int(v), jnp.uint32) for v in sha256._PAD_BLOCK_512]
+    live = sha256._schedule(w16)
     for t in range(64):
-        want = (int(live[t][0, 0]) + int(sha256_kernel._K[t])) & 0xFFFFFFFF
-        assert int(sha256_kernel._PAD_WK[t]) == want
+        want = (int(live[t][0, 0]) + int(sha256._K[t])) & 0xFFFFFFFF
+        assert int(sha256._PAD_WK[t]) == want
 
 
-def test_planar_chain_matches_jnp(monkeypatch):
-    """The bit-reversed planar (8, m, 128) level chain — used for giant
-    levels where the (k,16) layout's 8x tile padding would OOM — must equal
-    the jnp tree bit-for-bit after normalizing storage order. The Pallas
-    calls are replaced by jnp twins (interpret mode is far too slow for the
-    unrolled kernels); what this pins is the NEW glue: leaf/node plane
-    layouts, the contiguous-halves child split of node_planes_folded, the
-    bitrev leaf permutation, planar_to_natural, and build_levels' planar
-    routing."""
-    from zkstark_tpu.hash import merkle
+@pytest.fixture
+def emulated(monkeypatch):
+    """Route the wrappers' pallas_call through the grid emulator, recording
+    the interpret flag each call asked for."""
+    calls = []
 
-    def jnp_leaf(flat):
-        # jnp twin of the leaf block (sha256.leaf_hash's fallback path,
-        # which would otherwise route back into the patched kernel)
-        n = flat.shape[0]
-        z = jnp.zeros((n,), dtype=jnp.uint32)
-        block = jnp.stack(
-            [flat, jnp.full((n,), 0x80000000, dtype=jnp.uint32)]
-            + [z] * 13
-            + [jnp.full((n,), 32, dtype=jnp.uint32)],
-            axis=-1,
-        )
-        state = jnp.broadcast_to(jnp.asarray(sha256._H0), (n, 8))
-        return sha256.compress(state, block)
+    def fake(kernel, spec, interpret, *args):
+        calls.append(interpret)
+        return jnp.asarray(testing.emulate_pallas_grid(kernel, spec, *args))
 
-    def fake_leaf_call(vals2d, interpret):
-        return jnp_leaf(vals2d.reshape(-1)).T.reshape(8, -1, 128)
+    monkeypatch.setattr(sha256_kernel, "_pallas_call", fake)
+    return calls
 
-    def fake_node_call(blocks, interpret):
-        left = blocks[:8].reshape(8, -1).T
-        right = blocks[8:].reshape(8, -1).T
-        return sha256.node_hash(left, right).T.reshape(8, -1, 128)
 
-    monkeypatch.setenv("ZKSTARK_PALLAS", "interpret")
-    monkeypatch.setattr(sha256_kernel, "_leaf_call", fake_leaf_call)
-    monkeypatch.setattr(sha256_kernel, "_node_call", fake_node_call)
-    monkeypatch.setattr(merkle, "PLANAR_MIN", 1024)
-    monkeypatch.setattr(merkle, "PLANAR_STOP", 1024)
-    rng = np.random.default_rng(7)
-    vals = jnp.asarray(
-        rng.integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
-    )
+@pytest.mark.parametrize("n", [1, 1000, 1025, 3000])
+def test_wrapper_ragged_batches_match_hashlib(emulated, n):
+    """Any batch size: the last block is masked, never read or written past
+    the array."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    pairs = rng.integers(0, 1 << 32, (n, 16), dtype=np.uint64).astype(np.uint32)
+    with jax.disable_jit():
+        leaves = np.asarray(sha256_kernel.leaf_hash(jnp.asarray(vals)))
+        nodes = np.asarray(sha256_kernel.node_hash(jnp.asarray(pairs)))
+    assert leaves.shape == (n, 8) and nodes.shape == (n, 8)
+    for i in sorted({0, n // 2, n - 1}):
+        assert sha256.digest_to_bytes(leaves[i]) == hashlib.sha256(
+            int(vals[i]).to_bytes(4, "big")
+        ).digest()
+        assert sha256.digest_to_bytes(nodes[i]) == hashlib.sha256(
+            pairs[i].astype(">u4").tobytes()
+        ).digest()
+
+
+def test_routing_cpu_takes_plain_path(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("kernel called on the CPU")
+
+    monkeypatch.setattr(sha256_kernel, "leaf_hash", boom)
+    monkeypatch.setattr(sha256_kernel, "node_hash", boom)
+    assert ops.target_platform() == "cpu" and not ops.gpu_kernels()
+    vals = jnp.arange(8, dtype=jnp.uint32)
+    levels = merkle.build_levels(vals)
+    assert len(levels) == 4 and levels[-1].shape == (1, 8)
+
+
+def test_routing_gpu_takes_kernel(monkeypatch):
+    seen = []
+
+    def leaf(values):
+        seen.append(("leaf", values.shape))
+        return sha256.leaf_hash_loop(values)
+
+    def node(pairs):
+        seen.append(("node", pairs.shape))
+        return sha256.node_hash_loop(pairs)
+
+    monkeypatch.setattr(ops, "target_platform", lambda: "gpu")
+    monkeypatch.setattr(sha256_kernel, "leaf_hash", leaf)
+    monkeypatch.setattr(sha256_kernel, "node_hash", node)
+    vals = jnp.arange(8, dtype=jnp.uint32)
     got = merkle.build_levels(vals)
-    monkeypatch.setenv("ZKSTARK_PALLAS", "off")
+    assert seen == [("leaf", (8,)), ("node", (4, 16)), ("node", (2, 16)), ("node", (1, 16))]
+    monkeypatch.undo()
     want = merkle.build_levels(vals)
-    assert len(got) == len(want)
-    assert merkle.is_planar(got[0]) and not merkle.is_planar(want[0])
     for g, w in zip(got, want):
-        if merkle.is_planar(g):
-            g = merkle.planar_to_natural(g)
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-    # batched twin: 4 trees of 1024 leaves through the planar chain
-    vals2 = jnp.asarray(
-        rng.integers(0, 1 << 32, (4, 1024), dtype=np.uint64).astype(np.uint32)
-    )
-    monkeypatch.setenv("ZKSTARK_PALLAS", "interpret")
-    got_b = merkle.build_levels_batch(vals2)
-    monkeypatch.setenv("ZKSTARK_PALLAS", "off")
-    want_b = merkle.build_levels_batch(vals2)
-    for g, w in zip(got_b, want_b):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
-def _patch_planar(monkeypatch, planar_min):
-    """Route build_levels' planar chain through jnp kernel twins on CPU."""
-    from zkstark_tpu.hash import merkle
-
-    def jnp_leaf(flat):
-        n = flat.shape[0]
-        z = jnp.zeros((n,), dtype=jnp.uint32)
-        block = jnp.stack(
-            [flat, jnp.full((n,), 0x80000000, dtype=jnp.uint32)]
-            + [z] * 13
-            + [jnp.full((n,), 32, dtype=jnp.uint32)],
-            axis=-1,
-        )
-        state = jnp.broadcast_to(jnp.asarray(sha256._H0), (n, 8))
-        return sha256.compress(state, block)
-
-    monkeypatch.setenv("ZKSTARK_PALLAS", "interpret")
-    monkeypatch.setattr(
-        sha256_kernel,
-        "_leaf_call",
-        lambda v, i: jnp_leaf(v.reshape(-1)).T.reshape(8, -1, 128),
-    )
-
-    def fake_node_call(blocks, interpret):
-        left = blocks[:8].reshape(8, -1).T
-        right = blocks[8:].reshape(8, -1).T
-        return sha256.node_hash(left, right).T.reshape(8, -1, 128)
-
-    monkeypatch.setattr(sha256_kernel, "_node_call", fake_node_call)
-    monkeypatch.setattr(merkle, "PLANAR_MIN", planar_min)
-    monkeypatch.setattr(merkle, "PLANAR_STOP", planar_min)
-    monkeypatch.setattr(merkle, "PLANAR_DOMAIN_MIN", 1)  # force planar proofs
-
-
-def test_planar_prove_golden_end_to_end(monkeypatch):
-    """Full stark-101 prove with the bit-reversed planar storage FORCED down
-    to 2048-hash levels: the fused device gathers (sparse openings over
-    planar levels) and the host MerkleTree accessors must still produce the
-    byte-exact golden transcript — the planar layout changes storage order
-    only, never the tree."""
-    from zkstark_tpu.protocol import fused as fused_mod
-    from zkstark_tpu.protocol import prover as pr
-    from zkstark_tpu.protocol.config import STARK101, STARK101_SECRET
-    from zkstark_tpu.protocol.prover import prove
-
-    def clear():
-        fused_mod.fused_core_packed.clear_cache()
-        fused_mod.fused_core.clear_cache()
-        pr._phase1.clear_cache()
-        pr._phase2.clear_cache()
-        pr._fri_fold.clear_cache()
-
-    _patch_planar(monkeypatch, 2048)
-    clear()
-    try:
-        proof = prove(STARK101, STARK101_SECRET)
-        assert len(proof.data) == 7836
-        assert proof.state.hex() == (
-            "d7eec91544f72a592145e7d505a2f274de740e0319ede8c983fd84c7736f6712"
-        )
-        # legacy host-synced path exercises MerkleTree.auth_path over
-        # host-fetched planar levels
-        legacy = prove(STARK101, STARK101_SECRET, fused=False)
-        assert legacy.data == proof.data
-    finally:
-        clear()
+def test_routing_never_interprets_on_gpu(monkeypatch, emulated):
+    monkeypatch.setattr(ops, "target_platform", lambda: "gpu")
+    with jax.disable_jit():
+        levels = merkle.build_levels(jnp.arange(4, dtype=jnp.uint32))
+    assert emulated == [False, False, False]  # one leaf call, two node levels
+    leaf = hashlib.sha256((3).to_bytes(4, "big")).digest()
+    assert sha256.digest_to_bytes(np.asarray(levels[0][3])) == leaf

@@ -1,5 +1,5 @@
 """Shard-invariance tests on a virtual 8-device CPU mesh (SURVEY.md §4):
-sharded six-step NTT, sharded Merkle and sharded FRI fold must be
+sharded four-step NTT, sharded Merkle and sharded FRI fold must be
 bit-identical to their single-device counterparts."""
 
 import numpy as np
@@ -102,3 +102,18 @@ def test_sharded_fold_matches_single():
         lambda e: fold_sharded(e, beta_m, inv_x, inv2, mesh=mesh)
     )(jax.device_put(evals, vec_sharding(mesh)))
     np.testing.assert_array_equal(np.asarray(sharded), np.asarray(single))
+
+
+def test_sharded_merkle_gpu_route_passes_vma_check(monkeypatch):
+    """With the GPU kernel routed in, the per-shard Merkle build still passes
+    shard_map's varying-axes check: the kernel declares its output varying
+    over the input's mesh axes (traced only — the kernel compiles for GPUs)."""
+    from zkstark_tpu import ops
+    from zkstark_tpu.parallel import sharded_build_levels
+
+    monkeypatch.setattr(ops, "target_platform", lambda: "gpu")
+    mesh = cpu_mesh(4)
+    jaxpr = jax.make_jaxpr(lambda v: sharded_build_levels(v, mesh))(
+        jnp.zeros(64, jnp.uint32)
+    )
+    assert "pallas_call" in str(jaxpr)

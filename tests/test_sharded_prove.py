@@ -56,7 +56,7 @@ def test_sharded_prove_bytes_identical(solo_proof, n_dev):
 
 
 def test_sharded_prove_host_chip_mesh(solo_proof):
-    """('host','chip') 2-D mesh — the multi-host mesh shape (DCN×ICI),
+    """('host','chip') 2-D mesh — the multi-process mesh shape,
     CPU-simulated — still yields identical bytes."""
     cfg, solo = solo_proof
     mesh = make_host_chip_mesh(n_hosts=2, chips_per_host=4, backend="cpu")

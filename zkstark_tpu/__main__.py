@@ -1,4 +1,4 @@
-"""CLI driver — the TPU-native analog of the reference's main() (main.rs:15-36).
+"""CLI driver — the analog of the reference's main() (main.rs:15-36).
 
 The reference binary proves, verifies, and prints timings + proof size with no
 flags. This entry point does the same by default and adds the config surface
@@ -138,9 +138,9 @@ def cmd_run(args) -> int:
     t0 = time.perf_counter()
     try:
         if args.profile:
-            from zkstark_tpu.runtime import profiler_trace
+            import jax
 
-            ctx = profiler_trace(args.profile)
+            ctx = jax.profiler.trace(args.profile)
         else:
             ctx = contextlib.nullcontext()
         with ctx:
@@ -229,12 +229,10 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     from zkstark_tpu.parallel.mesh import initialize_distributed
-    from zkstark_tpu.runtime import enable_compilation_cache
 
     # Multi-host bootstrap (SURVEY.md §5 distributed-comms row): a no-op
     # single-process, joins the coordinator when a cluster env is present.
     initialize_distributed()
-    enable_compilation_cache()
     return args.fn(args)
 
 

@@ -1,11 +1,11 @@
-"""Vectorized prime-field arithmetic on TPU, generic over the prime.
+"""Vectorized prime-field arithmetic, generic over the prime.
 
-TPU-native design notes
------------------------
+Design notes
+------------
 The reference implementation (`/root/reference/src/field.rs:8-211`) wraps a scalar
 Montgomery integer (`num_modular::MontgomeryInt<u32>`), generic over `const P: u32`
 — one element at a time on a CPU. Here the unit of work is a whole `uint32`
-array: every operation below is an elementwise VPU program over vectors of field
+array: every operation below is an elementwise vector program over field
 elements, designed so XLA can fuse chains of them (butterflies, constraint
 evaluation, FRI folds) into single kernels.
 
@@ -19,9 +19,10 @@ its prime shape; every other prime takes the generic 16-bit-limb multiply.
 Module-level functions are the default field's ops — existing call sites (and
 the byte-exact stark-101 transcript) are untouched.
 
-TPU has no 32×32→64-bit multiply, so the 64-bit products needed by Montgomery
-reduction are synthesized from 16-bit limb products, which stay inside native
-uint32 VPU ops (`_mul32_wide`). Representation:
+The 64-bit products needed by Montgomery reduction are synthesized from 16-bit
+limb products, which stay inside uint32 vector ops (`_mul32_wide`) — a form
+every backend lowers (a native 32×32→64 multiply is an open item for GPUs).
+Representation:
 
 * **Montgomery form, R = 2^32.** An element ``a`` is stored as ``a·R mod p`` in a
   ``uint32``. `mont_mul(x, y) = x·y·R^{-1} mod p` keeps the form closed under
@@ -64,7 +65,7 @@ def _u32(x) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Field descriptor — the TPU twin of the reference's Gf<const P: u32>
+# Field descriptor — the vector twin of the reference's Gf<const P: u32>
 # ---------------------------------------------------------------------------
 
 
@@ -312,7 +313,7 @@ FIELD_ALT = field_for(P_ALT)
 
 
 # ---------------------------------------------------------------------------
-# 32x32 -> 64 wide multiply out of 16-bit limb products (pure uint32 VPU ops)
+# 32x32 -> 64 wide multiply out of 16-bit limb products (pure uint32 ops)
 # ---------------------------------------------------------------------------
 
 def _mul32_wide(a, b):

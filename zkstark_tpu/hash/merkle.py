@@ -13,208 +13,31 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from zkstark_tpu.hash import sha256
 
-# Trees with at least PLANAR_MIN leaves are built in bit-reversed planar
-# (8, m, 128) layout (digest i at flat slot bitrev(i)): the child split is
-# two contiguous half-slices (sha256_kernel.node_planes_folded), so the
-# chain has neither the row-major path's (K, 16) transpose intermediates —
-# the 8-16× tile-padded allocations that OOMed the 2^25-domain proof — nor
-# the old planar chain's stride-2 minor-dim slices. Within such a tree the
-# chain stays planar down to PLANAR_STOP-hash levels, then converts (one
-# small gather) and finishes on the row-major pairs kernel.
-#
-# Thresholds are measured (v5e, tools/probe_r05.py + prove_big, r5): the
-# pairs path is 20-30% FASTER per level at every size that fits
-# (2^20: 249 vs 205 M h/s; 2^24: 867 vs 586), so planar is purely the
-# capacity layout. Capacity is a whole-PROGRAM property, not per-tree: a
-# 2^25-domain proof holds ~23 trees at once, so its 2^24-leaf FRI trees
-# must also avoid padded pairs intermediates even though a STANDALONE
-# 2^24 tree is fine on pairs. Hence two inputs: this per-tree floor, and
-# the `planar` flag the prover derives from its domain size
-# (protocol/fused.py: planar ⇔ eval_domain ≥ 2^25 — measured: 2^24 proof
-# 1.69 s all-pairs vs 2.16 s planar-stored; 2^25 does not fit all-pairs).
-# No env knob; plain prove() picks the fitting layout.
-PLANAR_MIN = 1 << 24
-PLANAR_STOP = 1 << 22
-PLANAR_DOMAIN_MIN = 1 << 25  # proofs at domains ≥ this use planar storage
 
+def build_levels(values):
+    """All tree levels bottom-up from (..., n) uint32 residues; n a power of
+    two, leading axes are independent trees (the batched prover's B axis).
 
-def planar_for_domain(eval_domain: int) -> bool:
-    """Should a proof at this domain size store its big trees planar?"""
-    return eval_domain >= PLANAR_DOMAIN_MIN
-
-
-def _bitrev_iota(n: int):
-    """Bit-reversal permutation as an IN-TRACE elementwise computation
-    (shardable; a host constant would embed 4n bytes into the module)."""
-    bits = n.bit_length() - 1
-    i = jax.lax.broadcasted_iota(jnp.uint32, (n,), 0)
-    r = jnp.zeros_like(i)
-    for b in range(bits):
-        r = r | (((i >> b) & jnp.uint32(1)) << (bits - 1 - b))
-    return r
-
-
-def _host_bitrev(n: int) -> np.ndarray:
-    from zkstark_tpu.ntt.core import bit_reverse_indices
-
-    return bit_reverse_indices(n)
-
-
-def _bitrev_int(i: int, bits: int) -> int:
-    """Bit-reverse one index (host int — no table materialization)."""
-    r = 0
-    for _ in range(bits):
-        r = (r << 1) | (i & 1)
-        i >>= 1
-    return r
-
-
-def is_planar(level) -> bool:
-    """True for a bit-reversed planar (8, m, 128) level, False for (k, 8)
-    row-major natural order (the batched (B, k, 8) levels are row-major —
-    the 128-lane minor dim is the discriminator)."""
-    return level.ndim == 3 and level.shape[0] == 8 and level.shape[-1] == 128
-
-
-def level_size(level) -> int:
-    return level.shape[1] * 128 if is_planar(level) else level.shape[0]
-
-
-def planar_to_natural(level):
-    """(8, m, 128) bit-reversed planes → (k, 8) natural row-major."""
-    from zkstark_tpu.ops import sha256_kernel
-
-    k = level.shape[1] * 128
-    rowmajor_br = sha256_kernel.planes_to_rowmajor(level)  # bitrev order
-    # un-permute: natural[i] = rowmajor_br[bitrev(i)] (bitrev is an
-    # involution); in-trace indices — a host constant would embed 4k bytes
-    return jnp.take(rowmajor_br, _bitrev_iota(k), axis=0)
-
-
-def build_levels(values, planar: bool = True):
-    """All tree levels bottom-up from (n,) uint32 residues; n a power of two.
-
-    Returns [leaf_level, …, root (1,8)] — still on device. Trees with
-    ≥ PLANAR_MIN leaves keep their levels in bit-reversed planar
-    (8, m, 128) layout down to PLANAR_STOP hashes (see threshold notes;
-    `is_planar`/`level_size`/the fused gathers adapt consumers); all other
-    levels are (k, 8) natural row-major. `planar=False` forces all-row-major
-    output (the sharded shard_map path, whose out_specs are declared per
-    level)."""
-    n = values.shape[0]
+    Returns [leaf_level (..., n, 8), …, root (..., 1, 8)] — still on device.
+    Every level is row-major natural order, so the adjacent digest rows of a
+    level ARE the 64-byte left‖right messages of the next: one reshape, no
+    gathers. Pairs never cross trees (n is even)."""
+    lead = values.shape[:-1]
+    n = values.shape[-1]
     assert n & (n - 1) == 0 and n >= 1
-    from zkstark_tpu import ops
-
-    use_pallas = ops.pallas_enabled()
-    if use_pallas:
-        from zkstark_tpu.ops import sha256_kernel
-
-    planes = None
-    if (
-        planar
-        and use_pallas
-        and n >= PLANAR_MIN
-        and n % sha256_kernel.MIN_BATCH == 0
-    ):
-        # leaves permuted to bit-reversed order once (one elementwise-indexed
-        # gather), then every planar node level is two contiguous slices
-        planes = sha256_kernel.leaf_planes(jnp.take(values, _bitrev_iota(n)))
-        level = planes
-    elif use_pallas and n >= sha256_kernel.MIN_BATCH and n % sha256_kernel.MIN_BATCH == 0:
-        level = sha256_kernel.leaf_hash(values)
-    else:
-        level = sha256.leaf_hash(values)
+    level = sha256.leaf_hash(values.reshape(-1)).reshape(lead + (n, 8))
     levels = [level]
-    while level_size(level) > 1:
-        k = level_size(level) // 2  # number of parent nodes
-        if planes is not None and k >= max(
-            PLANAR_STOP, 2 * sha256_kernel.MIN_BATCH
-        ):
-            planes = sha256_kernel.node_planes_folded(planes)
-            level = planes
-        else:
-            if planes is not None:
-                # planar → row-major boundary (one small gather at ≤ PLANAR_MIN)
-                level = planar_to_natural(planes)
-                planes = None
-            if (
-                use_pallas
-                and k >= sha256_kernel.MIN_BATCH
-                and k % sha256_kernel.MIN_BATCH == 0
-            ):
-                # adjacent digest rows of (n, 8) are exactly the left‖right
-                # 16-word node message — one reshape, no gathers
-                level = sha256_kernel.node_hash_pairs(level.reshape(k, 16))
-            else:
-                level = sha256.node_hash(level[0::2], level[1::2])
+    while level.shape[-2] > 1:
+        k = level.shape[-2] // 2  # number of parent nodes
+        pairs = level.reshape(-1, 16)
+        level = sha256.node_hash_pairs(pairs).reshape(lead + (k, 8))
         levels.append(level)
     return levels
-
-
-def build_levels_batch(values):
-    """Batched twin of build_levels: (B, n) residues → [(B, n, 8), …, (B, 1, 8)].
-
-    B independent trees built in lockstep — the DP axis of batched proving.
-    The flat reshape keeps the Pallas hash kernels on their fast path (they
-    only see bigger flat batches)."""
-    bsz, n = values.shape
-    assert n & (n - 1) == 0 and n >= 1
-    from zkstark_tpu import ops
-
-    use_pallas = ops.pallas_enabled()
-    if use_pallas:
-        from zkstark_tpu.ops import sha256_kernel
-
-    # The planar chain works on the flattened (bsz·k) hash axis: children
-    # 2j/2j+1 of any parent share a tree (n is even), so even/odd global
-    # index = even/odd in-tree index and pairs never cross trees. This path
-    # keeps the stride-2 node_planes chain (the folded bit-reversed layout
-    # is per-tree; batch trees are small, so this is an HBM guard only).
-    planes = None
-    planar_min = PLANAR_MIN
-    flat_n = bsz * n
-    if use_pallas and flat_n >= planar_min and flat_n % sha256_kernel.MIN_BATCH == 0:
-        planes = sha256_kernel.leaf_planes(values.reshape(flat_n))
-        level = sha256_kernel.planes_to_rowmajor(planes).reshape(bsz, n, 8)
-    elif (
-        use_pallas
-        and flat_n >= sha256_kernel.MIN_BATCH
-        and flat_n % sha256_kernel.MIN_BATCH == 0
-    ):
-        level = sha256_kernel.leaf_hash(values.reshape(flat_n)).reshape(bsz, n, 8)
-    else:
-        level = sha256.leaf_hash(values.reshape(flat_n)).reshape(bsz, n, 8)
-    levels = [level]
-    while level.shape[1] > 1:
-        k = level.shape[1] // 2
-        if planes is not None and bsz * k >= planar_min:
-            planes = sha256_kernel.node_planes(planes)
-            level = sha256_kernel.planes_to_rowmajor(planes).reshape(bsz, k, 8)
-        elif (
-            use_pallas
-            and bsz * k >= sha256_kernel.MIN_BATCH
-            and (bsz * k) % sha256_kernel.MIN_BATCH == 0
-        ):
-            planes = None
-            flat = level.reshape(bsz * k, 16)  # adjacent digests = left‖right
-            level = sha256_kernel.node_hash_pairs(flat).reshape(bsz, k, 8)
-        else:
-            planes = None
-            flat = level.reshape(bsz * k, 16)
-            level = sha256.node_hash(flat[:, :8], flat[:, 8:]).reshape(bsz, k, 8)
-        levels.append(level)
-    return levels
-
-
-@jax.jit
-def _build_root(values):
-    return build_levels(values)[-1][0]
 
 
 @dataclass
@@ -229,26 +52,17 @@ class MerkleTree:
 
     @property
     def num_leaves(self) -> int:
-        return level_size(self.levels[0])
+        return self.levels[0].shape[0]
 
     def root(self) -> bytes:
         return sha256.digest_to_bytes(np.asarray(self.levels[-1][0]))
-
-    @staticmethod
-    def _digest(level, i: int):
-        """Digest row i of a level in either storage layout."""
-        if is_planar(level):
-            k = level_size(level)
-            slot = _bitrev_int(i, k.bit_length() - 1)
-            return np.asarray(level)[:, slot // 128, slot % 128]
-        return np.asarray(level[i])
 
     def auth_path(self, index: int) -> list:
         """Sibling digests leaf→root (reference trace(), merkle.rs:54-71)."""
         path = []
         i = index
         for level in self.levels[:-1]:
-            path.append(sha256.digest_to_bytes(self._digest(level, i ^ 1)))
+            path.append(sha256.digest_to_bytes(np.asarray(level[i ^ 1])))
             i >>= 1
         return path
 
@@ -257,15 +71,7 @@ class MerkleTree:
         idx = np.asarray(indices, dtype=np.int64)
         per_level = []
         for level in self.levels[:-1]:
-            if is_planar(level):
-                k = level_size(level)
-                slots = np.array(
-                    [_bitrev_int(int(i), k.bit_length() - 1) for i in idx ^ 1]
-                )
-                flat = level.reshape(8, k)
-                sibs = np.asarray(jnp.take(flat, jnp.asarray(slots), axis=1)).T
-            else:
-                sibs = np.asarray(jnp.take(level, jnp.asarray(idx ^ 1), axis=0))
+            sibs = np.asarray(jnp.take(level, jnp.asarray(idx ^ 1), axis=0))
             per_level.append(sibs)
             idx >>= 1
         return [

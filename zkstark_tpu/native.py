@@ -4,7 +4,7 @@ Builds the shared library on demand (g++, no external deps) and exposes:
   * the Fiat-Shamir channel primitives (commit / draw),
   * batched scalar hash helpers,
   * `verify_native` — a fully independent C++ verifier used to cross-check
-    the Python verifier and the TPU prover's transcript bytes (the stand-in
+    the Python verifier and the device prover's transcript bytes (the stand-in
     for "accepted by the reference verifier": no Rust toolchain exists here).
 
 Falls back gracefully (native() returns None) if the toolchain is missing.

@@ -1,39 +1,26 @@
-"""Pallas TPU kernels for the framework's hot ops.
+"""Hand-written kernels and the one rule that routes to them.
 
-Each kernel has a pure-jnp twin elsewhere in the package (hash/sha256.py,
-ntt/ntt.py); the wrappers here are bit-identical drop-ins. Mode control:
-
-  ZKSTARK_PALLAS = "on"         compile with Mosaic (requires a TPU backend)
-                 | "interpret"  run the same kernels in interpreter mode (CPU CI)
-                 | "off"        callers fall back to the jnp implementations
-
-Default: "on" when the default JAX backend is a TPU, else "off".
+The kernels here (ops/sha256_kernel.py: Pallas through Triton) compile for
+NVIDIA GPUs only; each has a plain jnp twin that is the path everywhere else
+and the reference its tests compare against. `gpu_kernels()` is the single
+capability check: it is true when the arrays being traced live on a GPU —
+the pinned default device if there is one (`prove(mesh=...)` pins the mesh's
+first device), else the default backend. Interpret mode is never chosen
+here: tests reach it by calling a kernel wrapper with `interpret=True`.
 """
 
 from __future__ import annotations
 
-import os
 
-
-def pallas_mode() -> str:
-    mode = os.environ.get("ZKSTARK_PALLAS")
-    if mode:
-        return mode
+def target_platform() -> str:
+    """Platform of the device the traced arrays live on ("gpu", "cpu", …)."""
     import jax
 
-    # jax_default_device (set e.g. by tests pinning to CPU) overrides the
-    # platform-priority default backend — honor it, else Mosaic kernels would
-    # be lowered for a backend the arrays don't live on.
     dev = jax.config.jax_default_device
     if dev is not None:
-        platform = getattr(dev, "platform", dev)
-        return "on" if platform == "tpu" else "off"
-    return "on" if jax.default_backend() == "tpu" else "off"
+        return getattr(dev, "platform", dev)
+    return jax.default_backend()
 
 
-def pallas_enabled() -> bool:
-    return pallas_mode() in ("on", "interpret")
-
-
-def pallas_interpret() -> bool:
-    return pallas_mode() == "interpret"
+def gpu_kernels() -> bool:
+    return target_platform() == "gpu"

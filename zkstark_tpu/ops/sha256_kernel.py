@@ -1,17 +1,22 @@
-"""Fused batched SHA-256 as a Pallas TPU kernel.
+"""Batched SHA-256 as a Pallas kernel for NVIDIA GPUs (Triton route).
 
-The jnp implementation (hash/sha256.py) expresses the 48 schedule steps and 64
-rounds as `fori_loop`s over a materialized (N, 64) schedule buffer; XLA keeps
-that buffer in HBM for large N, so every round pays an HBM round trip. Here the
-whole compression is one straight-line VPU program per (8, 128)-hash block: the
-message schedule lives as a rolling 16-word window in vector registers/VMEM and
-never touches HBM. Arithmetic intensity is ~1000 uint32 ops per 64-byte block,
-so the kernel is compute-bound — the right side of the roofline.
+Every Merkle leaf and node of a commitment is one independent SHA-256, so a
+level is a flat batch. The kernel hashes BLOCK of them at a time, one hash
+per lane: the 8 state words and the 16-word schedule window live in
+registers as loop carries and never touch device memory (the `fori_loop`
+twin in hash/sha256.py round-trips a materialized (N, 64) schedule every
+round). The round and schedule arithmetic is hash/sha256.py's `_round` /
+`_next_word`, shared with the unrolled plain form; here the 64 rounds stay a
+loop, which keeps the compiled kernel small (the fully unrolled node body
+took ~86 s to compile for the card per shape). Arithmetic intensity is
+~2,500 u32 ops per 64 bytes read, so the kernel is compute-bound.
 
-Layout: hashes are laid out one-per-lane. A digest is 8 planes of (rows, 128)
-uint32; a 16-word message block is 16 such planes. Wrappers convert from the
-row-major (N, 8) convention used by hash/merkle.py (a cheap relayout next to
-~1000 ops/hash of compute).
+Layouts are the Merkle level's own, row-major: leaves read (N,) values, nodes
+read the (K, 16) rows left‖right straight from the child level, both write
+(·, 8) digests. The grid is a fixed number of programs that stride over the
+blocks, and the row count arrives as a one-element operand masking the last
+block — so the kernel is identical for every batch size, and one compiled
+kernel serves every level of every tree in a program.
 
 Reference semantics preserved: leaf = SHA256(big-endian u32) (merkle.rs:30-34),
 node = SHA256(left ‖ right) (merkle.rs:42-45).
@@ -24,248 +29,120 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from zkstark_tpu.ops import pallas_interpret
+from zkstark_tpu.hash import sha256
 
-_K = np.array(
-    [
-        0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
-        0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
-        0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
-        0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
-        0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
-        0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
-        0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
-        0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
-        0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
-        0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
-        0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
-    ],
-    dtype=np.uint32,
-)
-
-_H0 = np.array(
-    [
-        0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
-        0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
-    ],
-    dtype=np.uint32,
-)
-
-# Sublane rows per grid step: 8×128 = 1024 hashes per program. Measured
-# negative result (r4, 2^20 commit on v5e): ROWS=16/32/64 give only
-# 180/177/183 M hashes/s vs 171.6 at 8 — the serial-round dependency chain
-# is NOT the limiter — while raising MIN_BATCH pushes the stark-101 tree's
-# small levels off the kernel path. 8 stays.
-_ROWS = 8
+BLOCK = 256  # hashes per program step (one per lane)
+GRID = 1056  # programs: 8 per SM of a 132-SM H100
+NUM_WARPS = 4
 
 
-def _rotr(x, r: int):
-    return (x >> r) | (x << (32 - r))
+def _compress(state, w16, k_ref):
+    """One compression with a rolling 16-word window as loop carry."""
+
+    def body(t, carry):
+        st, win = carry[:8], carry[8:]
+        st = sha256._round(st, win[0] + k_ref[t])
+        return st + win[1:] + (sha256._next_word(win),)
+
+    out = lax.fori_loop(0, 64, body, tuple(state) + tuple(w16))
+    return tuple(s + o for s, o in zip(state, out[:8]))
 
 
-def _schedule(w16):
-    """Expand 16 message words (each a (R,128) plane) to all 64, unrolled."""
-    w = list(w16)
-    for t in range(16, 64):
-        s0 = _rotr(w[t - 15], 7) ^ _rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
-        s1 = _rotr(w[t - 2], 17) ^ _rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
-        w.append(w[t - 16] + s0 + w[t - 7] + s1)
-    return w
-
-
-def _rounds(state, wk):
-    """64 unrolled rounds; wk[t] = w[t] + K[t] already summed."""
-    a, b, c, d, e, f, g, h = state
-    for t in range(64):
-        big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & g)
-        t1 = h + big_s1 + ch + wk[t]
-        big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        t2 = big_s0 + maj
-        a, b, c, d, e, f, g, h = t1 + t2, a, b, c, d + t1, e, f, g
-    return a, b, c, d, e, f, g, h
-
-
-def _compress(state, w16):
-    w = _schedule(w16)
-    wk = [w[t] + jnp.uint32(int(_K[t])) for t in range(64)]
-    out = _rounds(state, wk)
+def _pad_rounds(state, wk_ref):
+    """The second node block: 64 rounds over the constant schedule w+K."""
+    out = lax.fori_loop(0, 64, lambda t, st: sha256._round(st, wk_ref[t]), state)
     return tuple(s + o for s, o in zip(state, out))
 
 
-def _h0_state(like):
-    z = like & jnp.uint32(0)
-    return tuple(z + jnp.uint32(int(h)) for h in _H0)
+def _for_each_block(n_ref, body):
+    """Call body(rows, mask) for every BLOCK-row block this program owns:
+    blocks pid, pid + programs, … below ceil(n / BLOCK)."""
+    n = n_ref[0]
+    pid = pl.program_id(0)
+    programs = pl.num_programs(0)
+    nblocks = lax.div(n + (BLOCK - 1), BLOCK)
+    trips = lax.div(jnp.maximum(nblocks - pid, 0) + programs - 1, programs)
+
+    def step(j, carry):
+        start = (pid + j * programs) * BLOCK
+        rows = start + lax.broadcasted_iota(jnp.int32, (BLOCK,), 0)
+        body(pl.ds(start, BLOCK), rows < n)
+        return carry
+
+    lax.fori_loop(0, trips, step, 0)
 
 
-def _leaf_kernel(vals_ref, out_ref):
-    """Leaf digests: one padded block [v, 0x80…, 0×13, bitlen=32] per hash."""
-    v = vals_ref[:]
-    z = v & jnp.uint32(0)
-    w16 = [v, z + jnp.uint32(0x80000000)] + [z] * 13 + [z + jnp.uint32(32)]
-    digest = _compress(_h0_state(v), w16)
-    for i in range(8):
-        out_ref[i, :, :] = digest[i]
+def _leaf_kernel(n_ref, k_ref, vals_ref, out_ref):
+    def body(rows, mask):
+        v = plgpu.load(vals_ref.at[rows], mask=mask, other=np.uint32(0))
+        z = v & np.uint32(0)
+        w16 = [v, z + np.uint32(0x80000000)] + [z] * 13 + [z + np.uint32(32)]
+        digest = _compress(tuple(z + h for h in sha256._H0), w16, k_ref)
+        for i, word in enumerate(digest):
+            plgpu.store(out_ref.at[rows, i], word, mask=mask)
+
+    _for_each_block(n_ref, body)
 
 
-# Second node block is the constant SHA-256 padding for a 64-byte message; its
-# schedule is message-independent, so precompute w[t] + K[t] on the host.
-_PAD = np.zeros(16, dtype=np.uint32)
-_PAD[0] = 0x80000000
-_PAD[15] = 512
+def _node_kernel(n_ref, k_ref, pad_wk_ref, pairs_ref, out_ref):
+    def body(rows, mask):
+        w16 = [
+            plgpu.load(pairs_ref.at[rows, i], mask=mask, other=np.uint32(0))
+            for i in range(16)
+        ]
+        z = w16[0] & np.uint32(0)
+        mid = _compress(tuple(z + h for h in sha256._H0), w16, k_ref)
+        for i, word in enumerate(_pad_rounds(mid, pad_wk_ref)):
+            plgpu.store(out_ref.at[rows, i], word, mask=mask)
+
+    _for_each_block(n_ref, body)
 
 
-def _pad_schedule_plus_k() -> np.ndarray:
-    w = [int(x) for x in _PAD]
-    m = (1 << 32) - 1
-
-    def rotr(x, r):
-        return ((x >> r) | (x << (32 - r))) & m
-
-    for t in range(16, 64):
-        s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
-        s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
-        w.append((w[t - 16] + s0 + w[t - 7] + s1) & m)
-    return np.array([(w[t] + int(_K[t])) & m for t in range(64)], dtype=np.uint32)
-
-
-_PAD_WK = _pad_schedule_plus_k()
-
-
-def _node_kernel(blk_ref, out_ref):
-    """Node digests: 64-byte message (left‖right), two compressions."""
-    w16 = [blk_ref[i, :, :] for i in range(16)]
-    mid = _compress(_h0_state(w16[0]), w16)
-    z = w16[0] & jnp.uint32(0)
-    wk = [z + jnp.uint32(int(_PAD_WK[t])) for t in range(64)]
-    out = _rounds(mid, wk)
-    digest = tuple(s + o for s, o in zip(mid, out))
-    for i in range(8):
-        out_ref[i, :, :] = digest[i]
-
-
-def _leaf_grid_spec(m: int) -> dict:
-    """The production grid/BlockSpecs for _leaf_kernel — shared by the real
-    pallas_call and the grid-emulation tests (tests/test_pallas_grid.py), so
-    an index-map bug cannot hide behind a test-only copy."""
+def _grid_spec(n: int, programs: int = GRID, vma=frozenset()) -> dict:
+    """The production grid — shared by the real pallas_call and the grid-
+    emulation tests (tests/test_pallas_grid.py). Every operand is one
+    whole-array ref; the kernel picks its blocks itself. `vma`: the mesh
+    axes the output varies over inside shard_map (those of the input)."""
     return dict(
-        grid=(m // _ROWS,),
-        in_specs=[
-            pl.BlockSpec((_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (8, _ROWS, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((8, m, 128), jnp.uint32),
+        grid=(programs,),
+        out_shape=jax.ShapeDtypeStruct((n, 8), jnp.uint32, vma=vma),
     )
 
 
-def _node_grid_spec(m: int) -> dict:
-    return dict(
-        grid=(m // _ROWS,),
-        in_specs=[
-            pl.BlockSpec(
-                (16, _ROWS, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (8, _ROWS, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((8, m, 128), jnp.uint32),
-    )
-
-
-@functools.partial(jax.jit, static_argnums=(1,))
-def _leaf_call(vals2d, interpret: bool):
+def _pallas_call(kernel, spec: dict, interpret: bool, *args):
     return pl.pallas_call(
-        _leaf_kernel, interpret=interpret, **_leaf_grid_spec(vals2d.shape[0])
-    )(vals2d)
+        kernel,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        **spec,
+    )(*args)
 
 
-@functools.partial(jax.jit, static_argnums=(1,))
-def _node_call(blocks, interpret: bool):
-    return pl.pallas_call(
-        _node_kernel, interpret=interpret, **_node_grid_spec(blocks.shape[1])
-    )(blocks)
+def _consts(n: int, *tables):
+    return (jnp.full((1,), n, jnp.int32),) + tuple(jnp.asarray(t) for t in tables)
 
 
-MIN_BATCH = _ROWS * 128  # smallest batch the kernel accepts (one grid step)
-
-
-def leaf_planes(values):
-    """(N,) uint32 → planar digests (8, N//128, 128); hash h at
-    (row h//128, lane h%128). N must be a multiple of MIN_BATCH."""
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def leaf_hash(values, interpret: bool = False):
+    """(N,) uint32 → (N, 8) digests, any N ≥ 1."""
     n = values.shape[0]
-    assert n % MIN_BATCH == 0, n
-    return _leaf_call(values.reshape(n // 128, 128), pallas_interpret())
+    spec = _grid_spec(n, vma=jax.typeof(values).vma)
+    return _pallas_call(_leaf_kernel, spec, interpret, *_consts(n, sha256._K), values)
 
 
-def node_planes(planes):
-    """Planar digests of one level (8, m, 128) → planar parent digests
-    (8, m//2, 128): parent j = SHA256(child 2j ‖ child 2j+1).
-
-    Stays in planar layout end-to-end. The previous (K, 16) row-major
-    intermediate was a memory catastrophe at scale: u32 arrays with a
-    16-wide minor dim get T(8,128) tile padding — 8-16× HBM expansion,
-    the allocation that OOMed the 2^25-domain proof. Here the even/odd
-    child split is a minor-dim stride-2 slice (one clean copy; see
-    node_planes_folded for the slice-free bit-reversed variant)."""
-    m = planes.shape[1]
-    n = m * 128
-    k = n // 2
-    assert k % MIN_BATCH == 0, k
-    flat = planes.reshape(8, n)
-    left = flat[:, 0::2].reshape(8, k // 128, 128)
-    right = flat[:, 1::2].reshape(8, k // 128, 128)
-    blocks = jnp.concatenate([left, right], axis=0)  # plane i = message word i
-    return _node_call(blocks, pallas_interpret())
-
-
-def node_planes_folded(planes):
-    """node_planes for a level stored in BIT-REVERSED digest order:
-    (8, m, 128) planes of n = m·128 digests, digest i at flat slot
-    bitrev_log2(n)(i) → (8, m/2, 128) parent planes, ALSO bit-reversed.
-
-    Bit-reversal makes the layout self-similar under pairing:
-        bitrev_L(2j)   = bitrev_{L-1}(j)          (left children = 1st half)
-        bitrev_L(2j+1) = n/2 + bitrev_{L-1}(j)    (right children = 2nd half)
-    so the even/odd child split is two CONTIGUOUS half-slices — no stride-2
-    minor-dim slicing (the planar chain's former per-level cost) and no
-    (K, 16) transposes (the row-major chain's HBM catastrophe) — and the
-    parent block emerges already bit-reversed for the next level."""
-    m = planes.shape[1]
-    n = m * 128
-    k = n // 2
-    assert k % MIN_BATCH == 0, k
-    flat = planes.reshape(8, n)
-    left = flat[:, :k].reshape(8, k // 128, 128)
-    right = flat[:, k:].reshape(8, k // 128, 128)
-    blocks = jnp.concatenate([left, right], axis=0)  # plane i = message word i
-    return _node_call(blocks, pallas_interpret())
-
-
-def planes_to_rowmajor(planes):
-    """(8, m, 128) planar → (m·128, 8) row-major digest rows."""
-    return planes.reshape(8, -1).T
-
-
-def leaf_hash(values):
-    """(N,) uint32 → (N, 8) digests; N must be a multiple of MIN_BATCH."""
-    return planes_to_rowmajor(leaf_planes(values))
-
-
-def node_hash_pairs(pairs):
-    """(K, 16) uint32 rows = left‖right word blocks → (K, 8) digests.
-
-    Kept for direct callers/tests; build_levels uses the planar chain
-    (leaf_planes/node_planes) to avoid this 16-minor layout entirely."""
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def node_hash(pairs, interpret: bool = False):
+    """(K, 16) uint32 rows left‖right → (K, 8) digests, any K ≥ 1."""
     k = pairs.shape[0]
-    assert k % MIN_BATCH == 0, k
-    planes = _node_call(
-        pairs.T.reshape(16, k // 128, 128), pallas_interpret()
+    return _pallas_call(
+        _node_kernel,
+        _grid_spec(k, vma=jax.typeof(pairs).vma),
+        interpret,
+        *_consts(k, sha256._K, sha256._PAD_WK),
+        pairs,
     )
-    return planes.reshape(8, k).T

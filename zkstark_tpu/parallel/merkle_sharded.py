@@ -13,7 +13,6 @@ at any mesh size.
 
 from __future__ import annotations
 
-import jax
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
@@ -27,7 +26,7 @@ def sharded_build_levels(values, mesh: Mesh):
     Returns the same level list as merkle.build_levels (leaf level first);
     levels at or below the shard size come out block-sharded, the top
     log2(S) levels replicated. Works on any mesh shape — the domain blocks
-    over the flattened axis product (('host','chip'): ICI before DCN)."""
+    over the flattened axis product."""
     n = values.shape[0]
     s = mesh_size(mesh)
     local_n = n // s
@@ -36,26 +35,20 @@ def sharded_build_levels(values, mesh: Mesh):
     num_local_levels = local_n.bit_length()  # local leaf level … local root
     axes = tuple(mesh.axis_names)
 
-    # check_vma=False: the per-shard body routes to Pallas hash kernels on
-    # TPU, and pallas_call outputs carry no varying-mesh-axes annotation —
-    # with the check on, jax rejects the call (the out_specs above already
-    # state exactly how outputs vary).
-    # planar=False: out_specs below are declared per level as row-major
-    # arrays; per-shard levels are 1/S the size, so the planar HBM guard is
-    # far less pressing here (revisit if giant per-shard levels appear)
+    # The GPU hash kernel declares its output varying over the same mesh
+    # axes as its input (ops/sha256_kernel.py), so shard_map's check holds.
     local_levels = shard_map(
-        lambda v: tuple(merkle.build_levels(v, planar=False)),
+        lambda v: tuple(merkle.build_levels(v)),
         mesh=mesh,
         in_specs=P(axes),
         out_specs=tuple([P(axes, None)] * num_local_levels),
-        check_vma=False,
     )(values)
 
     levels = list(local_levels)
     # top tree over the S gathered subtree roots (replicated, tiny)
     top = levels[-1]
     while top.shape[0] > 1:
-        top = sha256.node_hash(top[0::2], top[1::2])
+        top = sha256.node_hash_pairs(top.reshape(-1, 16))
         levels.append(top)
     return levels
 

@@ -3,18 +3,19 @@ protocol config so the same proof is byte-identical at any sharding
 (SURVEY.md §5 config note).
 
 The reference has no parallelism of any kind (SURVEY.md §2: single thread,
-single process, no comms). Scaling here is expressed the TPU-native way
-(SURVEY.md §5 distributed-comms row):
+single process, no comms). Scaling here (SURVEY.md §5 distributed-comms row):
+  * `make_mesh(n)` — a 1-D mesh over n devices whose one axis shards the
+    evaluation domain. On a host whose cards are joined all to all (NVLink
+    between the four H100s) every pair of devices exchanges at the same rate,
+    so the mesh follows the algorithm alone and 1-D is the right shape;
   * `initialize_distributed()` — `jax.distributed.initialize` process
-    bootstrap for multi-host slices (the NCCL/MPI-layer equivalent; XLA:TPU
-    lowers all collectives onto ICI within a slice and DCN across slices);
-  * a ('host', 'chip') 2-D mesh whose *flattened* product axis shards the
-    evaluation domain — contiguous domain blocks land on chips of the same
-    host first, so the six-step NTT's all_to_all decomposes into a
-    chip-local ICI exchange plus a host-level DCN exchange;
+    bootstrap for multi-process runs, and `make_host_chip_mesh`, a 2-D
+    (process, local device) mesh whose flattened product axis shards the
+    domain, so contiguous blocks stay within one process before crossing
+    processes;
   * `jax.sharding` annotations + XLA-inserted collectives (all_to_all for
-    NTT transposes, all_gather for subtree roots) — never hand-written
-    transport.
+    NTT transposes, all_gather for subtree roots, lowered to NCCL on GPUs) —
+    never hand-written transport.
 
 Everything below also works single-process: the standard JAX simulation
 (`--xla_force_host_platform_device_count=N`) exercises the identical pjit
@@ -42,7 +43,7 @@ def initialize_distributed(
 ) -> int:
     """Multi-host bootstrap: `jax.distributed.initialize` (idempotent).
 
-    With no arguments, reads the cluster environment (TPU metadata / SLURM /
+    With no arguments, reads the cluster environment (SLURM /
     JAX_COORDINATOR_ADDRESS…) exactly as JAX does natively; single-process
     runs (no coordinator anywhere) are left untouched. Returns the process
     count. Call before any other JAX API on every host of a slice.
@@ -113,7 +114,7 @@ def make_host_chip_mesh(
     """('host', 'chip') 2-D mesh: rows = processes, columns = that process's
     local devices, in JAX's process-major device order — so a sharding over
     the flattened ('host','chip') product puts contiguous blocks on one
-    host's chips first (ICI traffic) before crossing hosts (DCN traffic).
+    process's devices first before crossing processes.
 
     Single-process: hosts×chips is carved out of the local device list
     (the CPU-simulation path used by tests and the scaling bench)."""
@@ -145,7 +146,7 @@ def mesh_size(mesh: Mesh) -> int:
 
 def row_sharding(mesh: Mesh, ndim: int = 2) -> NamedSharding:
     """Block-shard the leading axis over ALL mesh axes, replicate the rest
-    (('host','chip') meshes flatten process-major: ICI before DCN)."""
+    (('host','chip') meshes flatten process-major)."""
     return NamedSharding(mesh, P(tuple(mesh.axis_names), *([None] * (ndim - 1))))
 
 

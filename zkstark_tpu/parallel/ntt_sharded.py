@@ -1,91 +1,35 @@
-"""Six-step (transpose) NTT — the sharded large-domain transform.
+"""Sharded large-domain NTT: the four-step transform with its transposes
+pinned to a device mesh.
 
 A flat radix-2 NTT sharded over a device mesh would cross the shard boundary
 in its last log2(S) butterfly stages, costing one collective per stage. The
-six-step factorization n = n1·n2 (SURVEY.md §2 TP row / §5 long-context)
-restructures the transform so ALL inter-device traffic collapses into
-transposes, which XLA GSPMD lowers to `all_to_all` on the ICI mesh:
+four-step factorization n = n1·n2 (SURVEY.md §2 TP row / §5 long-context,
+`ntt.core.fourstep`) keeps every butterfly local to a row, so ALL inter-device
+traffic collapses into its transposes, which XLA GSPMD lowers to `all_to_all`
+collectives once each intermediate is constrained to the row sharding:
 
-    1. transpose (n1, n2) → (n2, n1)                 [all_to_all]
+    1. transpose (n1, n2) → (n2, n1)                   [all_to_all]
     2. n2 independent row NTTs of size n1 (root ω^{n2})  [local]
-    3. twiddle by ω^{j2·k1}                           [local]
-    4. transpose back → (n1, n2)                      [all_to_all]
+    3. twiddle by ω^{j2·k1}                             [local]
+    4. transpose → (n1, n2)                             [all_to_all]
     5. n1 independent row NTTs of size n2 (root ω^{n1})  [local]
-    6. transpose → natural-order output               [all_to_all]
+    6. transpose → natural-order output                 [all_to_all]
 
-Identity: X[k1 + n1·k2] = Σ_{j2} ω^{j2·k1} (ω^{n1})^{j2·k2} Σ_{j1}
-x[j1·n2 + j2] (ω^{n2})^{j1·k1} — exactly Σ_j x[j] ω^{jk}, so the result is
-bit-identical to ntt.ntt() at any mesh size (shard-invariance is tested on a
-virtual 8-device CPU mesh).
-
-Row NTTs reuse the batched radix-2 kernel (ntt.ntt on the last axis); the
-sharding constraints between steps are the whole distribution story — the
-scaling-book recipe: annotate, let XLA insert collectives.
+The result is bit-identical to ntt.ntt() at any mesh size (shard-invariance
+is tested on a virtual 8-device CPU mesh) — the annotate-and-let-XLA-insert-
+collectives recipe, with no hand-written transport.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from zkstark_tpu import ntt
 from zkstark_tpu.field import fp
 from zkstark_tpu.field.fp import FIELD101, Field
-from zkstark_tpu.parallel.mesh import row_sharding, vec_sharding
-
-
-_UBLK = 128  # inner factor of the twiddle factorization (lane width)
-
-
-@functools.lru_cache(maxsize=None)
-def sixstep_constants(n: int, root: int, inverse: bool, field: Field = FIELD101):
-    """Plans + factored twiddles for n = n1·n2 (balanced split, n1 ≥ n2).
-
-    The step-3 twiddle matrix T[j2, k1] = ω^{j2·k1} is NOT materialized —
-    at n = 2^24 it is a 64 MB replicated constant (the round-2 scaling
-    blocker). Split k1 = 128·kh + kl for the exact rank factorization
-        T[j2, k1] = U[j2, kh] · V[j2, kl],
-    U = (ω^{128})^{j2·kh} (n2 × n1/128), V = ω^{j2·kl} (n2 × 128) — two
-    row-indexed tables ~1000× smaller, sharding along j2 like the data
-    (the same trick as ops/ntt_kernel.py:120-146).
-
-    All tables are HOST numpy (see ntt.make_plan: device-array constants
-    stall remote lowering with per-buffer device→host fetches)."""
-    import numpy as np
-
-    bits = n.bit_length() - 1
-    b1 = (bits + 1) // 2
-    n1, n2 = 1 << b1, 1 << (bits - b1)
-    blk = min(_UBLK, n1)  # tiny transforms: full Vandermonde is fine
-    p = field.p
-    w = pow(root, p - 2, p) if inverse else root % p
-    # row plans use ω^{n2} (order n1) and ω^{n1} (order n2)
-    inner = ntt.make_plan(n1, pow(w, n2, p), field=field)
-    outer = ntt.make_plan(n2, pow(w, n1, p), field=field)
-    rows = field.host_powers_pow2(w, n2)  # ω^{j2} residues
-    v = field.host_to_mont(field.host_vandermonde(rows, blk))  # (n2, blk)
-    rows_blk = field.host_pow_vec(rows, blk)  # (ω^{blk})^{j2}
-    u = field.host_to_mont(
-        field.host_vandermonde(rows_blk, n1 // blk)
-    )  # (n2, n1/blk)
-    scale = None
-    if inverse:
-        n_inv = pow(n, p - 2, p)
-        scale = int(field.host_to_mont(np.array([n_inv], np.uint32))[0])
-    return n1, n2, inner, outer, u, v, scale
-
-
-def _apply_twiddle_rows(a, u, v, field: Field = FIELD101):
-    """a[j2, k1] · ω^{j2·k1} via the U·V factorization (fused elementwise).
-    a is (n2, n1); row axis may be sharded — u, v are row-indexed too."""
-    n2, n1 = a.shape
-    blk = v.shape[-1]
-    a3 = a.reshape(n2, n1 // blk, blk)
-    a3 = fp.mont_mul_f(field, fp.mont_mul_f(field, a3, u[:, :, None]), v[:, None, :])
-    return a3.reshape(n2, n1)
+from zkstark_tpu.ntt import core
+from zkstark_tpu.parallel.mesh import row_sharding
 
 
 def ntt_sixstep(
@@ -98,26 +42,15 @@ def ntt_sixstep(
 ):
     """Size-n transform of a flat Montgomery vector, natural order in/out,
     bit-identical to ntt.ntt / ntt.intt, sharded over `mesh` when given."""
-    n1, n2, inner, outer, u, v, scale = sixstep_constants(n, root, inverse, field)
+    plan = core.make_plan(n, root, inverse, field)
+    c = core.fourstep_constants(n, plan.w, plan.scale_mont, field)
 
-    def constrain(arr, ndim):
-        if mesh is not None:
-            arr = jax.lax.with_sharding_constraint(
-                arr, row_sharding(mesh, ndim) if ndim > 1 else vec_sharding(mesh)
-            )
-        return arr
+    def constrain(arr):
+        if mesh is None:
+            return arr
+        return jax.lax.with_sharding_constraint(arr, row_sharding(mesh, arr.ndim))
 
-    xm = constrain(x.reshape(n1, n2), 2)
-    xt = constrain(xm.T, 2)  # all_to_all
-    a = ntt.ntt(xt, inner)  # local row NTTs (n2 rows of length n1)
-    a = _apply_twiddle_rows(a, u, v, field)
-    b = constrain(a.T, 2)  # all_to_all
-    c = ntt.ntt(b, outer)  # local row NTTs (n1 rows of length n2)
-    out = constrain(c.T, 2).reshape(n)  # final transpose → natural order
-    out = constrain(out, 1)
-    if inverse:
-        out = fp.mont_mul_f(field, out, jnp.uint32(scale))
-    return out
+    return constrain(core.fourstep(x, c, field, constrain))
 
 
 def coset_ntt_sixstep(

@@ -26,7 +26,7 @@ Reference semantics for FibonacciSq: prover.rs:32-39 builds a 1023-step trace
 a[0]=1, a[1]=secret, a[i]=a[i-2]²+a[i-1]², then Lagrange-interpolates through
 (g^i, a[i]) for i ≤ 1022 — an O(n³) CPU loop (polynomial.rs:337-383).
 
-TPU-native replacement (SURVEY.md §7.1): the trace lives on the size-1024
+Vectorized replacement (SURVEY.md §7.1): the trace lives on the size-1024
 subgroup ⟨g⟩ with the last point free. Since deg f ≤ 1022, the degree-1023
 INTT coefficient must vanish; the INTT is linear in the unknown a[1023], so
 one size-1024 INTT plus a rank-1 correction yields exactly the reference's

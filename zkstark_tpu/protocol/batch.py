@@ -4,7 +4,7 @@ The reference proves one statement per process (main.rs:15-36). Production
 proving is throughput-bound — the DP axis of SURVEY.md §2: batch B witnesses
 as a leading array axis, run B Fiat-Shamir chains in lockstep on device
 (transcript/device_channel.py is axis-generic), and hash B Merkle trees per
-level through the same Pallas kernels (they just see a B× bigger flat batch).
+level through the same hash path (it just sees a B× bigger flat batch).
 Per-proof transcripts remain byte-identical to single proving — asserted by
 tests/test_batch.py against the stark-101 golden.
 
@@ -44,7 +44,7 @@ def fused_core_batch(cfg: StarkConfig, traces_mont):
     coeffs = air.interpolate_trace(traces_mont, cfg.trace_domain, cfg.field)
     f_eval = ntt.coset_ntt(coeffs, cfg.eval_domain, cfg.coset_offset, cfg.field)
     f_res = fp.from_mont_f(cfg.field, f_eval)
-    f_levels = merkle.build_levels_batch(f_res)
+    f_levels = merkle.build_levels(f_res)
 
     state = dc.zero_state((bsz,))
     state = dc.absorb_hash(state, f_levels[-1][:, 0])
@@ -59,7 +59,7 @@ def fused_core_batch(cfg: StarkConfig, traces_mont):
     )  # (B, n_constraints)
     cp = pr.composition_eval(cfg, f_eval, alphas_mont)
     cp_res = fp.from_mont_f(cfg.field, cp)
-    cp_levels = merkle.build_levels_batch(cp_res)
+    cp_levels = merkle.build_levels(cp_res)
     state = dc.absorb_hash(state, cp_levels[-1][:, 0])
     roots.append(cp_levels[-1][:, 0])
 
@@ -75,7 +75,6 @@ def fused_core_batch(cfg: StarkConfig, traces_mont):
             layer,
             evals,
             dc.draw_to_mont(b, cfg.field)[:, None],
-            build=merkle.build_levels_batch,
         )
         layer_res.append(res)
         layer_levels.append(levels)
